@@ -1,7 +1,6 @@
 """Weak-scaling rehearsal: particles/sec of the map-parallel step at mesh
-sizes 1..N on virtual CPU devices (the real-pod run uses the same program;
-this harness exists because only one physical chip is attached here --
-BASELINE.md's >=80% weak-scaling target is measured on real slices).
+sizes 1..N on virtual CPU devices (a run on several GPUs uses the same
+program; virtual-device numbers bound overheads only).
 
 Weak scaling: the map volume grows with the mesh (nz = 8 * n_devices), so
 per-device work is constant; reported efficiency = rate_N / (N * rate_1).
@@ -11,9 +10,8 @@ Usage: python bench_scaling.py [--devices 1 2 4 8] [--frames 10]
 
 ``--impl shardmap`` runs the hand-scheduled collective path
 (parallel/shard_step.py) instead of the GSPMD-partitioned jit; comparing
-the two on the same mesh is the profile VERDICT/ROADMAP section 4 calls
-for (virtual-mesh numbers bound overheads only -- collective *transport*
-cost needs a real slice).
+the two on the same mesh separates the two programs' overheads
+(collective *transport* cost needs real devices).
 """
 
 import argparse

@@ -1,4 +1,4 @@
-"""dspmap_tpu: a TPU-native dual-structure particle-filter occupancy map.
+"""dspmap_tpu: a dual-structure particle-filter occupancy map in JAX.
 
 A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of
 g-ch/DSP-map (Chen et al., "Continuous Occupancy Mapping in Dynamic
@@ -20,7 +20,7 @@ Quick start::
     state, out = step(state, frame)
 
 See SURVEY.md for the reference analysis this build follows and
-docs/DESIGN.md for the TPU-first architecture rationale.
+docs/DESIGN.md for the architecture rationale.
 """
 
 from .config import (  # noqa: F401
@@ -31,6 +31,7 @@ from .config import (  # noqa: F401
     large_urban,
     example_node_settings,
     performance_level_parameters,
+    shipped_presets,
 )
 from .state import (  # noqa: F401
     MapState,

@@ -14,7 +14,7 @@ Reference semantics reproduced here:
   angles),
 * voxel index <-> position (``include/dsp_dynamic.h:1062-1107``).
 
-TPU-first deviation (documented): the voxel grid is **world-axis-aligned and
+Deviation (documented): the voxel grid is **world-axis-aligned and
 toroidally addressed**.  The reference stores particles in an ego frame and
 shifts every particle by ``-delta_p`` each frame (``dsp_dynamic.h:300,665-667``),
 which forces a full relocation pass.  Here particles carry world positions and
@@ -39,8 +39,8 @@ def rotation_matrix(q: jnp.ndarray) -> jnp.ndarray:
     """3x3 rotation matrix of a unit quaternion (wxyz).
 
     For planar SoA math: applying 9 scalar coefficients to coordinate planes
-    avoids materializing ``[..., 3]``-stacked tensors whose 3-wide trailing
-    axis wastes TPU lanes.
+    avoids materializing ``[..., 3]``-stacked tensors with a 3-wide minor
+    axis.
     """
     w, x, y, z = q[0], q[1], q[2], q[3]
     return jnp.stack(
@@ -278,8 +278,8 @@ def storage_index_from_rel(rx, ry, rz, origin, cfg: MapConfig):
 
     Avoids per-element integer division: ``mod(w, n) = mod(o, n) + r`` folded
     back once, with ``mod(o, n)`` a scalar.  Integer div/mod by the
-    non-power-of-two grid dims costs tens of VPU cycles per element; this is
-    three adds and selects.
+    non-power-of-two grid dims is a long instruction sequence per element;
+    this is three adds and selects.
     """
     sox = jnp.mod(origin[0], cfg.nx)
     soy = jnp.mod(origin[1], cfg.ny)

@@ -1,5 +1,5 @@
 """ctypes bindings for the native preprocessing runtime
-(``native/preprocess.cpp``): the CPU data path feeding the TPU compute path.
+(``native/preprocess.cpp``): the host data path feeding the device step.
 
 Falls back to the numpy implementations in :mod:`.rosbag` when the shared
 library has not been built (``python native/build.py``).

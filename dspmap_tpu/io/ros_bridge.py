@@ -65,7 +65,7 @@ def _xyz_cloud_msg(rospy, points: np.ndarray, frame_id: str, stamp,
 
 
 class DspMapRosNode:
-    """The reference example node, TPU-native: one jitted step per
+    """The reference example node in JAX: one jitted step per
     synchronized (cloud, pose) pair, all displays published per frame."""
 
     def __init__(self, cfg=None, threshold: float = 0.2):

@@ -26,7 +26,7 @@ import jax.numpy as jnp
 
 from ..config import MapConfig
 from .. import geometry
-from ..state import MapState, flatten_pool, ravel_plane
+from ..state import MapState, flatten_pool
 from ..estimator import estimate_velocities
 from ..ops.propagate import propagate
 from ..ops.rebin import rebin
@@ -157,9 +157,8 @@ def make_step(cfg: MapConfig, with_metrics: bool = True,
                 # (XLA folds every pre-insert read of it away -- the sweep
                 # advance, birth's L1 classification -- and fuses the
                 # zero-fill into the insert scatters), while the ``where``
-                # form paid a full pool-plane read+write (~1.5 ms/frame at
-                # large_urban's 216 MB planes) and forced real reads
-                # downstream.  Observable content is identical: valid
+                # form would pay a full pool-plane read+write and force real
+                # reads downstream.  Observable content is identical: valid
                 # slots hold 0 either way, invalid slots are dead (every
                 # consumer masks by flags; insert overwrites on reuse).
                 if cfg.motion_model == "static":
@@ -188,12 +187,8 @@ def make_step(cfg: MapConfig, with_metrics: bool = True,
                     particles,
                     skip=() if cfg.record_particle_time else ("t",),
                 )
-                # Re-issue the constant-zero velocity planes in flat form:
-                # flatten_pool cannot fold a constant through the Pallas
-                # to_flat kernel (>= 16 MB planes), so without this the
-                # zeros would be materialized AND kernel-copied; replacing
-                # the flattened plane makes that kernel call dead (DCE) and
-                # keeps every flat-phase read of it constant-foldable.
+                # Re-issue the constant-zero velocity planes in flat form so
+                # every flat-phase read of them stays constant-foldable.
                 if cfg.motion_model == "static":
                     zf = jnp.zeros_like(particles.vx)
                     particles = dataclasses.replace(
@@ -204,8 +199,8 @@ def make_step(cfg: MapConfig, with_metrics: bool = True,
                         particles, vz=jnp.zeros_like(particles.vz)
                     )
                 sw = sw._replace(
-                    tags=ravel_plane(sw.tags),
-                    new_cell=ravel_plane(sw.new_cell),
+                    tags=sw.tags.reshape(-1),
+                    new_cell=sw.new_cell.reshape(-1),
                 )
                 particles, fovbin, future_movers, fov_stats, pending = (
                     rebin_and_register(

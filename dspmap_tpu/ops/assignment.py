@@ -17,13 +17,12 @@ range: any matching on real pairs dominates a dummy pair, so the square
 optimum restricted to real columns is exactly the rectangular Munkres result
 (per-pair swap argument); dummy assignments are reported as "no match".
 
-Small-instance fast path: every sequential JV path iteration is a
-dispatch-bound ~5 us on TPU (~0.9 ms/frame aggregated in the round-2 device
-trace even at realized cluster counts of 2-5), so when all valid rows AND
-columns lie in the leading 8x8 block the solve is done by exhaustive
+Small-instance fast path: every sequential JV path iteration is one device
+loop trip, so when all valid rows AND columns lie in the leading 8x8 block
+(realized cluster counts are 2-5) the solve is done by exhaustive
 enumeration instead: one constant one-hot ``[8!, 64]`` matrix turns "cost of
-every permutation" into a single MXU matmul ``P8 @ a8.ravel()`` followed by
-an argmin -- exact by definition, ~0.02 ms, no sequential loop.  The JV
+every permutation" into a single matmul ``P8 @ a8.ravel()`` followed by an
+argmin -- exact by definition, no sequential loop.  The JV
 loop remains the fallback for larger instances.
 """
 
@@ -65,7 +64,10 @@ def _brute_small(a: jnp.ndarray) -> jnp.ndarray:
     stripped by the caller exactly as for the JV path)."""
     perms, onehot = _perm_tables()
     flat = a[:_BRUTE_N, :_BRUTE_N].reshape(-1)  # [64]
-    totals = jnp.asarray(onehot) @ flat  # [8!] one MXU pass
+    # full f32: the argmin compares totals that can differ in the last
+    # digits, which a TF32 product would round away
+    totals = jnp.dot(jnp.asarray(onehot), flat,
+                     precision=jax.lax.Precision.HIGHEST)  # [8!]
     best = jnp.argmin(totals)
     return jnp.asarray(perms)[best]
 
@@ -95,10 +97,10 @@ def solve_assignment(
     # e-maxx formulation with a virtual column 0; arrays are 1-indexed on the
     # column axis (size N+1), p[j] = row matched to column j (0 = none yet).
     #
-    # The inner path loop is dispatch-bound on TPU (each sequential iteration
-    # costs ~5 us regardless of N; docs/PERF.md), so the classic per-iteration
-    # dual updates are reorganized into a cumulative-delta form with strictly
-    # fewer HLO ops per iteration:
+    # The inner path loop is sequential (one device loop trip per
+    # iteration, whatever N), so the classic per-iteration dual updates are
+    # reorganized into a cumulative-delta form with strictly fewer HLO ops
+    # per iteration:
     #
     # * v[j] only ever changes for USED columns, and the relaxation reads
     #   v[j] only for UNUSED ones -- so v never needs updating inside the
@@ -179,9 +181,9 @@ def solve_assignment(
     v0 = jnp.zeros((N + 1,), jnp.float32)
     p0 = jnp.zeros((N + 1,), jnp.int32)
 
-    # Only augment real (valid) rows: every sequential path iteration costs
-    # ~5 us on TPU (docs/PERF.md) and realized cluster counts are 2-5 of the
-    # max_clusters=16 capacity.  Dummy rows can only claim dummy-cost pairs,
+    # Only augment real (valid) rows: every sequential path iteration is a
+    # loop trip and realized cluster counts are 2-5 of the max_clusters=16
+    # capacity.  Dummy rows can only claim dummy-cost pairs,
     # which are stripped below, so skipping them leaves the real matching
     # optimal (square-up dominance argument in the module docstring).
     n_rows = jnp.max(

@@ -270,8 +270,8 @@ def particle_birth(
     # then cheap [P] row gathers -- the per-point column-gather form
     # (``particles.weight[:, cell]`` etc.) made XLA materialize a
     # dim-transposed {0,1} copy of all five pool planes to serve the [S, P]
-    # column gathers (~1.5 ms/frame of physical transposes; docs/PERF.md
-    # round-2 log).  The reduce reads the same planes sequentially instead.
+    # column gathers.  The reduce reads the same planes sequentially
+    # instead.
     # Flat mid-frame pools (state.flatten_pool) sum S contiguous [V] slices
     # instead of reshaping back to [S, V] (which would pay a relayout copy
     # per plane -- the cost the flat phase exists to avoid).
@@ -279,7 +279,7 @@ def particle_birth(
     # particle (the write-site clamp invariant, models/pipeline.py: vz under
     # limit-xy per dsp_dynamic.h:661-663, all three under the static model
     # per dsp_static.h:640-646) drop out of the L1 speed -- skipping their
-    # full-plane reads (one 216 MB plane ~0.8 ms at large_urban scale).
+    # full-plane reads.
     if cfg.motion_model == "static":
         v_axes = ()
     elif cfg.limit_motion_to_xy_plane:

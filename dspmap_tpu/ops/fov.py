@@ -11,11 +11,11 @@ particles are compacted AND pyramid-sorted in one stable sort keyed by
 particle (the pyramid-full vanish path, ``dsp_dynamic.h:1256-1259``).
 Particles ranked below the dense processing tier (``cfg.dense_slots``) land
 in the dense ``[n_pyramids, dense_slots]`` tiles the measurement update's
-matmul kernel consumes; ranks between the tier and the reference's kill
+pair passes consume; ranks between the tier and the reference's kill
 threshold (``cfg.pyramid_slots``) are compacted into a small *spill* buffer
 the update processes exactly (see ops/update.py) -- a processing layout, not
-a semantics change.  All binned-tensor scatters use unique indices
-(vectorized on TPU); all geometry runs on coordinate planes (no ``[..., 3]``
+a semantics change.  All binned-tensor scatters use unique indices; all
+geometry runs on coordinate planes (no ``[..., 3]``
 stacking).
 
 Quirk preserved (``dsp_dynamic.h:1261-1269``): surviving in-FOV particles
@@ -118,13 +118,11 @@ def _bin_candidates(particles, cfg: MapConfig, sensor_pos, idx, cand_pyr,
     )
 
     # Dense binned tensors: all scatters hit unique (pyramid, rank) cells.
-    # One stacked [M, 7] scatter replaces five separate ones (XLA scatter
-    # cost is per index row; measured 1.2 -> 0.8 ms at 32k candidates).
-    # The slot ids ride along bitcast to f32 with bit 30 forced on: small
-    # integers bitcast to f32 DENORMALS, and the TPU VPU flushes denormals
-    # to zero when a fusion routes the lane through float datapaths (a
-    # fusion-shape-dependent, silent corruption -- observed when an
-    # upstream gather refactor changed this scatter's producer fusion).
+    # One stacked [M, 7] scatter replaces five separate ones (scatter
+    # index processing is per row).  The slot ids ride along bitcast to
+    # f32 with bit 30 forced on: small integers bitcast to f32 DENORMALS,
+    # which a device may flush to zero when a fusion routes the lane
+    # through float datapaths.
     # Bit 30 makes the exponent field nonzero (a normal float) for any
     # id < 2^30; ids here are flat pool slots < S*V.
     cell = jnp.where(keep, cand_pyr * S_t + ranks, grid_cap)
@@ -250,8 +248,8 @@ def rebin_and_register(
 ):
     """Fused relocation + FOV registration for the fused-sweep path
     (limit-xy / static configurations): ONE pool-sized compaction over
-    ``mover | fov`` replaces the separate mover and FOV compactions (each
-    ~2.3 ms at pool size, docs/PERF.md).  Covers ``moveParticle`` /
+    ``mover | fov`` replaces the separate mover and FOV compactions.
+    Covers ``moveParticle`` /
     ``removeParticle`` (dsp_dynamic.h:1206-1279,686-690) plus the
     ``pyramids_in_fov`` rebuild.
 
@@ -332,7 +330,7 @@ def _rebin_chain(particles, vacated, cfg, sw, sensor_pos, update_time,
     # Halving ladder plus 3/4 steps: realized steady-state candidate counts
     # sit just above a power-of-two on both the flagship (~13k vs 12288)
     # and multi (~17k vs 16384), which otherwise forces the full-width
-    # branch every frame (measured round 4).
+    # branch every frame.
     sizes = [cap]
     while sizes[0] > (4096 if _FOV_BUCKETS else cap):
         sizes.insert(0, sizes[0] // 2)
@@ -379,9 +377,7 @@ def _rebin_chain_body(particles, vacated, cfg, sw, sensor_pos, update_time,
     # ---- movers: compact to the mover buffer and re-insert -------------
     # The destination cell is only consumed by the (much smaller) mover
     # buffer, so the ``new_cell`` plane is gathered at mover size rather
-    # than combined-buffer size (gathers cost ~7 ns/element whatever the
-    # table, docs/PERF.md; deriving the cell arithmetically instead fused
-    # into the gather loop and cost 0.82 ms -- measured dead end).
+    # than combined-buffer size.
     mov_i, mov_ok, n_mov, mov_buf_over = compact_mask(is_mover, m_cap)
     mov_src = jnp.minimum(flat0[mov_i], S * V - 1)
     mov_cell = jnp.where(mov_ok, pool_take(sw.new_cell, mov_src), V)
@@ -448,14 +444,14 @@ def _rebin_chain_body(particles, vacated, cfg, sw, sensor_pos, update_time,
                   a_vx[own_i], a_vy[own_i], a_vz[own_i], a_w[own_i])
         n_arrivals = jnp.minimum(n_own, m_cap)
 
-    # Huge-pool scatter merging: XLA TPU scatter never updates its operand
-    # in place, so at >= 64 MB planes every scatter site pays a full plane
-    # copy per plane written (insert._DEFER_PAYLOAD_BYTES).  Defer the six
-    # pos/vel plane scatters to ride particle birth's scatter site (disjoint
-    # slots, one set of plane copies instead of two); flags+weight still
-    # scatter here (slot allocation reads flags, the measurement writeback
-    # reads/writes weight).  Below the threshold the merge loses (measured;
-    # see the dead-end log in docs/PERF.md).
+    # Huge-pool scatter merging (insert._DEFER_PAYLOAD_BYTES): where a
+    # scatter site copies the planes it writes instead of updating them in
+    # place, at >= 64 MB planes that copy dominates.  Defer the six pos/vel
+    # plane scatters to ride particle birth's scatter site (disjoint slots,
+    # one set of plane copies instead of two); flags+weight still scatter
+    # here (slot allocation reads flags, the measurement writeback
+    # reads/writes weight).  None of the shipped presets reaches the
+    # threshold.
     from .insert import _DEFER_PAYLOAD_BYTES
 
     defer = S * V * 4 >= _DEFER_PAYLOAD_BYTES
@@ -467,8 +463,7 @@ def _rebin_chain_body(particles, vacated, cfg, sw, sensor_pos, update_time,
         # grouping runs BEFORE the mover scatter (it depends only on the
         # allocation), so the pyramid-overflow kill rows merge INTO the
         # mover flags scatter: one flags-plane write per frame instead of
-        # two (each write copies the whole plane -- the round-4 scatter
-        # finding; ~1.6 ms at large_urban).
+        # two.
         flat = flat0.at[jnp.where(mov_ok, mov_i, cap)].set(
             jnp.where(keep_ins, new_flat, S * V), mode="drop"
         )
@@ -516,8 +511,8 @@ def _rebin_chain_body(particles, vacated, cfg, sw, sensor_pos, update_time,
         )
     # keep_ins marks exactly the candidates whose scatter lands (in-bounds
     # destination with a free slot), so the insertion count is a
-    # buffer-sized reduce -- NOT a before/after pool-wide alive diff
-    # (two [S, V] reduces, ~0.37 ms/frame; round-4 trace).
+    # buffer-sized reduce -- NOT a before/after pool-wide alive diff (two
+    # [S, V] reduces).
     n_inserted = jnp.sum(keep_ins)
 
     if shard is not None:

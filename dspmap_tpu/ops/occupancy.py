@@ -16,12 +16,13 @@ Reference semantics preserved:
   the source so mass is conserved (``:1037-1041``),
 * all surviving flags reset to plain valid (``:968``).
 
-TPU formulation (see docs/DESIGN.md section 5): the in-voxel serial walk
+Formulation (see docs/DESIGN.md section 5): the in-voxel serial walk
 becomes a cumsum over the slot axis; survivor/copy counts are closed-form
 differences of ``ceil((cum - wa/2)/wa)``; copy placement and payload sourcing
-are slots-deep select sweeps.  On TPU the whole pool pass runs as ONE Pallas
-mega-kernel (``ops/pallas/occupancy.py``, element-exact vs the XLA path and
-toggled by ``cfg.use_pallas_occupancy``); the future-status scatter splits
+are slots-deep select sweeps.  On the GPU the whole pool pass runs as one
+Pallas kernel through Triton (``ops/pallas/occupancy.py``, element-exact vs
+the XLA path and toggled by ``cfg.use_pallas_occupancy``); the future-status
+scatter splits
 the population: exactly-static particles (the overwhelming majority under
 the reference's own zero-velocity birth policy) contribute to their own
 voxel at every horizon with no scatter; moving old particles are compacted
@@ -41,6 +42,14 @@ from .common import compact_mask, pool_take, select_rows
 from ..state import FLAG_VALID
 
 
+def _cumsum_rows(x):
+    """Inclusive cumsum over the slot axis, added row by row in slot order."""
+    rows = [x[0]]
+    for s in range(1, x.shape[0]):
+        rows.append(rows[-1] + x[s])
+    return jnp.stack(rows)
+
+
 def _pool_pass_xla(particles, cfg: MapConfig):
     """Cull + aggregates + resample, XLA formulation (CPU & fallback)."""
     S, V = particles.flags.shape
@@ -57,7 +66,13 @@ def _pool_pass_xla(particles, cfg: MapConfig):
     w = particles.weight
 
     # ---- per-voxel aggregates -----------------------------------------
-    weight_sum = jnp.sum(jnp.where(valid, w, 0.0), axis=0)  # [V]
+    # Slot-order running weight sum: the resample grid below is read off
+    # it, and the Pallas kernel sums in the same order, so both paths put
+    # every copy at the same slot.
+    wv_ = jnp.where(valid, w, 0.0)
+    hi = _cumsum_rows(wv_)  # [S, V]
+    lo = hi - wv_
+    weight_sum = hi[-1]  # [V]
     n_old = jnp.sum(old, axis=0).astype(jnp.float32)
     vel_sums = tuple(
         jnp.sum(jnp.where(old, f, 0.0), axis=0)
@@ -73,10 +88,6 @@ def _pool_pass_xla(particles, cfg: MapConfig):
     do_rs = count >= cfg.resample_min_count
     n_target = jnp.minimum(count, cfg.max_particles_per_voxel)
     wa = jnp.where(do_rs, weight_sum / jnp.maximum(n_target, 1), 1.0)  # [V]
-
-    wv_ = jnp.where(valid, w, 0.0)
-    hi = jnp.cumsum(wv_, axis=0)  # [S, V]
-    lo = hi - wv_
 
     def n_grid(x):  # grid points wa*(k+1/2) strictly below x
         return jnp.maximum(jnp.ceil(x / wa - 0.5), 0.0).astype(jnp.int32)
@@ -147,10 +158,8 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin: jnp.ndarray,
     and each shard scatters the contributions whose predicted cell it owns.
     """
     # End of the flat mid-frame phase (state.flatten_pool): the pool pass
-    # and its Pallas kernel block over [S, V] tiles.  The future-mover
-    # columns are gathered from the FLAT form first -- native 1-D gathers;
-    # after the unflatten each (row, col) pair gather pays a (1,128)-tiled
-    # copy of the plane it reads (round-3 device trace).
+    # and its Pallas kernel work on [S, V] columns.  The future-mover
+    # columns are gathered from the FLAT form -- native 1-D gathers.
     flat_form = particles if particles.flags.ndim == 1 else None
     if flat_form is not None:
         from ..state import unflatten_pool
@@ -159,11 +168,7 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin: jnp.ndarray,
     S, V = particles.flags.shape
     T = cfg.n_horizons
 
-    use_pallas = (
-        getattr(cfg, "use_pallas_occupancy", False)
-        and jax.default_backend() not in ("cpu",)
-    )
-    if use_pallas:
+    if cfg.use_pallas_occupancy and jax.default_backend() == "gpu":
         from .pallas.occupancy import occupancy_pool_pass
 
         (fields, weight_sum, n_old, vel_sums, static_contrib, moving,
@@ -234,27 +239,19 @@ def occupancy_and_resample(particles, cfg: MapConfig, origin: jnp.ndarray,
         ok = ok & shard.owns(cell, V)
         cell = cell - shard.lo
     # One flat [T*V] scatter-add: the [T, V] grid linearizes row-major so
-    # ``t*V + cell`` is the native scatter index.  The conversion rides
-    # ravel_plane/unravel_plane -- a logical reshape at small scale, the
-    # DMA relayout kernels at large-map scale (XLA's own linearization of
-    # a 2-D scatter into a >VMEM grid relayouts it through a ~35 GB/s
-    # chunked loop; ~10 ms/frame at large_urban's 130 MB grid, round-4
-    # trace).  Duplicate (cell, horizon) hits accumulate, so no
-    # unique-indices hint.
-    from ..state import ravel_plane, unravel_plane
-
+    # ``t*V + cell`` is the native scatter index.  Duplicate (cell, horizon)
+    # hits accumulate, so no unique-indices hint.
     idx = jnp.where(
         ok, cell + V * jnp.arange(T, dtype=jnp.int32)[:, None], T * V
     )  # [T, D]
-    flat_future = ravel_plane(future).at[idx.ravel()].add(
+    future = future.reshape(-1).at[idx.ravel()].add(
         jnp.broadcast_to(m_w[None, :], idx.shape).ravel(), mode="drop"
-    )
-    future = unravel_plane(flat_future, T)
+    ).reshape(T, V)
 
     if counters is not None:
-        # Per-voxel counters emitted by the Pallas kernel from its in-VMEM
-        # masks -- the mask-based forms below would re-read the pool planes
-        # (~2 ms/frame at large_urban; round-4 trace).
+        # Per-voxel counters emitted by the Pallas kernel from the masks it
+        # holds in registers -- the mask-based forms below re-read the pool
+        # planes.
         n_valid_v, n_culled_v, do_rs_v, n_dropped_v, n_filled_v = counters
         stats = {
             "alive": jnp.sum(

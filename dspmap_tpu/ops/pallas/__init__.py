@@ -1,3 +1,2 @@
-"""Pallas TPU kernels for the ops where XLA's generic lowering is the
-bottleneck (measured in docs/PERF.md): the fused prediction sweep and the
-occupancy/resample pool pass."""
+"""Pallas kernels for the GPU (Triton route), each matching an XLA
+formulation element for element: the occupancy/resample pool pass."""

@@ -2,7 +2,7 @@
 (``mapPrediction``, ``include/dsp_dynamic.h:627-701``) and the zero-velocity
 variant (``include/dsp_static.h:630-646``).
 
-TPU deviation (documented): the reference shifts every particle by the
+Deviation (documented): the reference shifts every particle by the
 negated ego displacement (``dsp_dynamic.h:300,665-667``) because its grid is
 ego-centric.  Our grid is world-aligned with a moving window (see
 ``geometry``), so ego motion moves no data; prediction only advances particles

@@ -16,7 +16,7 @@ one at a time in storage order, so a mover can occupy a slot another particle
 vacates later in the same pass (or fail because a later vacancy has not
 happened yet).  Here all movers vacate first, then fill -- same capacity
 bound, same conservation, different tie-breaking when voxels are nearly full.
-Movers beyond ``cfg.mover_capacity`` (a TPU-side budget with no reference
+Movers beyond ``cfg.mover_capacity`` (a fixed-shape budget with no reference
 analogue) are killed and counted.
 """
 

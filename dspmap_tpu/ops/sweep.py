@@ -4,10 +4,7 @@ pyramid geometry computed in one pass over the particle pool.
 These are the three full-pool elementwise stages of the frame
 (``mapPrediction``'s motion + bounds test, ``dsp_dynamic.h:653-690``, and the
 pyramid membership of ``moveParticle``, ``:1232-1243``).  Computing them
-together bounds the HBM traffic to one read + one write of the pool -- the
-Pallas kernel in :mod:`.pallas.sweep` hits that bound; this module holds the
-XLA reference implementation with bit-identical outputs (used on CPU, in
-tests, and whenever ``cfg.use_pallas_sweep`` is off).
+together lets XLA fuse them into one read + one write of the pool.
 
 Scope note: the fused path covers the ``limit_motion_to_xy_plane`` and
 static-model configurations, where the reference's own noise quirk makes
@@ -34,10 +31,9 @@ class SweepOut(NamedTuple):
     #: i32 pack of the five discrete per-slot outcomes:
     #: ``mover | fov<<1 | moving<<2 | moved_out<<3 | pyramid_cell<<4``,
     #: zero when no outcome bit is set.  One plane instead of five: the
-    #: candidate gather touches a single pool plane (a 32k-row gather costs
-    #: the same per plane whatever it holds, docs/PERF.md) and the bool
-    #: planes never materialize in HBM -- every other consumer is a fused
-    #: elementwise/reduction op on the properties below.
+    #: candidate gather touches a single pool plane and the bool planes
+    #: never materialize in device memory -- every other consumer is a
+    #: fused elementwise/reduction op on the properties below.
     tags: jnp.ndarray
 
     @property
@@ -69,10 +65,10 @@ class SweepOut(NamedTuple):
         return (self.tags & 7) != 0
 
 
-def sweep_reference(
+def sweep(
     particles, cfg: MapConfig, dt, origin, sensor_pos, quat, cell_base=0
 ) -> SweepOut:
-    """XLA implementation; the Pallas kernel must match this exactly.
+    """Advance, bounds-test and pyramid-tag every slot of the pool.
 
     ``cell_base`` is the global storage cell of column 0 -- nonzero only
     inside the ``shard_map`` fast path, where the pool is a slab of the
@@ -128,20 +124,3 @@ def sweep_reference(
     )
     tags = jnp.where(mover | fov | moving | moved_out, packed, 0)
     return SweepOut(px, py, pz, flags, new_cell, tags)
-
-
-def sweep(particles, cfg: MapConfig, dt, origin, sensor_pos, quat,
-          cell_base=0) -> SweepOut:
-    """Dispatch: Pallas kernel on TPU when enabled, XLA reference otherwise.
-    (The Pallas kernel assumes an unsharded pool; sharded slabs -- traced
-    ``cell_base`` -- always take the XLA path.)"""
-    unsharded = isinstance(cell_base, int) and cell_base == 0
-    if getattr(cfg, "use_pallas_sweep", False) and unsharded:
-        import jax
-
-        if jax.default_backend() not in ("cpu",):
-            from .pallas.sweep import sweep_pallas
-
-            return sweep_pallas(particles, cfg, dt, origin, sensor_pos, quat)
-    return sweep_reference(particles, cfg, dt, origin, sensor_pos, quat,
-                           cell_base)

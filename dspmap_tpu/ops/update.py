@@ -21,21 +21,21 @@ factor (``dsp_dynamic.h:1294-1301``).  Two are consciously dropped (both are
 O(1e-21) effects): the table's 0.001-sigma quantization and the +-9.9-sigma
 clamp -- we evaluate the exponential exactly.
 
-TPU formulation -- **two-tier on both axes**.  The reference's per-pyramid
+Formulation -- **two-tier on both axes**.  The reference's per-pyramid
 capacities (462 particle slots, 100 obs points) are safety thresholds;
 realized per-cell occupancy peaks ~20x lower (tools/occupancy_stats.py), so
 dense tiles at full capacity would waste ~20x the pair work.  Each axis is
 split at a dense-tier rank (``cfg.dense_slots`` / ``cfg.obs_dense``):
 
-* dense x dense: per pyramid tile, the pair term
-  ``|x - z|^2 = |x|^2 + |z|^2 - 2 x.z`` over the (2N+1)^2-cell neighborhood
-  as shifted copies of the ``[H, W, Ko]`` observation grid -- batched
-  matmuls on the MXU, chunked with ``lax.map`` only when the pair tensor
-  would not fit comfortably;
+* dense x dense: per pyramid tile, the pair term ``|x - z|^2`` over the
+  (2N+1)^2-cell neighborhood as shifted copies of the ``[H, W, Ko]``
+  observation grid, formed from coordinate differences and summed in the
+  same expression, so XLA fuses the pair tile into its reduction; chunked
+  with ``lax.map`` only when the pair tensor would not fit comfortably;
 * spill particles (rank >= dense tier, below the reference kill threshold)
   evaluate against their own cell's gathered neighborhood row and are
-  reduced into the C grid by a one-hot matmul (vectorized; a scatter here
-  would serialize);
+  reduced into the C grid by a one-hot matmul (a scatter-add here would
+  need atomics);
 * spill observations gather their neighborhood's dense particle tiles
   (contiguous row gathers) and push pass-2 contributions back into the
   dense factor tiles by one-hot matmul;
@@ -44,6 +44,10 @@ split at a dense-tier rank (``cfg.dense_slots`` / ``cfg.obs_dense``):
 All four blocks compute the identical g-sums -- the tiers are a processing
 layout, not an approximation; ``tests/test_ops.py`` asserts tier-invariance
 against a full-capacity single-tier configuration.
+
+Precision: every f32 matmul here states ``Precision.HIGHEST``.  A
+default-precision f32 dot may run in TF32 on the GPU (about three
+significant digits), which would move the weights of every update.
 """
 
 from __future__ import annotations
@@ -58,6 +62,8 @@ from ..config import MapConfig
 from .common import pool_put
 from .fov import FovBinning
 from .project import Observation
+
+_HI = jax.lax.Precision.HIGHEST
 
 #: reference standardNormalPDF constant: 1/sqrt(2 * (pi/2)) (dsp_dynamic.h:1284)
 REF_PDF_CONST = 1.0 / math.sqrt(math.pi)
@@ -131,16 +137,32 @@ def _chunk(n_pyr: int, s_pyr: int, ck: int, budget_floats: int = 34_000_000) -> 
     return best
 
 
-def _pair_g(ppos, pts, sigma: float):
-    """``g`` for one chunk: ppos [B, S, 3], pts [B, M, 3] -> [B, S, M]."""
-    a = ppos / sigma
-    b = pts / sigma
-    d2 = (
-        jnp.sum(a * a, axis=-1)[:, :, None]
-        + jnp.sum(b * b, axis=-1)[:, None, :]
-        - 2.0 * jnp.einsum("bsi,bmi->bsm", a, b, preferred_element_type=jnp.float32)
-    )
-    return (REF_PDF_CONST**3) * jnp.exp(-0.5 * jnp.maximum(d2, 0.0))
+def _pair_g(ppos, pts, sigma):
+    """``g`` for one chunk: ppos [B, S, 3], pts [B, M, 3] -> [B, S, M].
+
+    ``d^2`` comes from coordinate differences.  The expanded form
+    ``|a|^2 + |b|^2 - 2 a.b`` cancels catastrophically here: coordinates
+    are metres over ``sigma ~ 0.1 m``, so ``|a|^2 ~ 1e4`` while the
+    Gaussian only resolves ``d^2 <~ 10``.  The three axes are summed as
+    separate elementwise terms so that the whole pair tile stays one
+    elementwise producer, which XLA fuses into the caller's reduction."""
+    d2 = 0.0
+    for i in range(3):
+        d = (ppos[:, :, None, i] - pts[:, None, :, i]) / sigma
+        d2 = d2 + d * d
+    return (REF_PDF_CONST**3) * jnp.exp(-0.5 * d2)
+
+
+def pass1_sums(ppos, w, pts, sigma):
+    """Pass-1 partial sums of one chunk: ``sum_s w[b, s] g(pts[b, m] |
+    ppos[b, s])`` -> ``[B, M]``."""
+    return jnp.sum(_pair_g(ppos, pts, sigma) * w[..., None], 1)
+
+
+def pass2_sums(ppos, pts, cinv, sigma):
+    """Pass-2 factor sums of one chunk: ``sum_m cinv[b, m] g(pts[b, m] |
+    ppos[b, s])`` -> ``[B, S]``."""
+    return jnp.sum(_pair_g(ppos, pts, sigma) * cinv[:, None, :], 2)
 
 
 def measurement_update(
@@ -226,41 +248,30 @@ def measurement_update(
             sigma_ob,
         )[0] * jnp.repeat(adj, Ks, axis=1)  # [Psp, Yc*Ks]
 
-    use_pallas = (
-        getattr(cfg, "use_pallas_update", False)
-        and jax.default_backend() not in ("cpu",)
-    )
-
     # ---- pass 1: C(z) --------------------------------------------------
-    if use_pallas:
-        from .pallas.update import update_pass1
+    def pass1(args):
+        return pass1_sums(*args, sigma_ob)
 
-        c_part = update_pass1(fovbin.pos, pw, nbr_pts, sigma_ob)
+    p1_in = (
+        fovbin.pos.reshape(n_chunks, chunk, S_t, 3),
+        pw.reshape(n_chunks, chunk, S_t),
+        nbr_pts.reshape(n_chunks, chunk, ck, 3),
+    )
+    if n_chunks == 1:
+        c_part = pass1(jax.tree.map(lambda x: x[0], p1_in))[None]
     else:
-        def pass1(args):
-            ppos, w, pts = args
-            g = _pair_g(ppos, pts, sigma_ob)  # [B, S, CK]
-            return jnp.einsum("bsm,bs->bm", g, w,
-                              preferred_element_type=jnp.float32)
-
-        p1_in = (
-            fovbin.pos.reshape(n_chunks, chunk, S_t, 3),
-            pw.reshape(n_chunks, chunk, S_t),
-            nbr_pts.reshape(n_chunks, chunk, ck, 3),
-        )
-        if n_chunks == 1:
-            c_part = pass1(jax.tree.map(lambda x: x[0], p1_in))[None]
-        else:
-            c_part = jax.lax.map(pass1, p1_in)
-        c_part = c_part.reshape(n_pyr, ck)
+        c_part = jax.lax.map(pass1, p1_in)
+    c_part = c_part.reshape(n_pyr, ck)
 
     if have_psp:
         # reduce spill contributions into the same [n_pyr, CK] layout by
-        # source pyramid (one-hot matmul; scatter-add would serialize)
+        # source pyramid (one-hot matmul)
         onehot_p = (
             sp_pyr_safe[None, :] == jnp.arange(n_pyr, dtype=jnp.int32)[:, None]
         ) & fovbin.sp_mask[None, :]
-        c_part = c_part + onehot_p.astype(jnp.float32) @ (sp_w[:, None] * g_pz)
+        c_part = c_part + jnp.dot(
+            onehot_p.astype(jnp.float32), sp_w[:, None] * g_pz, precision=_HI
+        )
 
     if axis_name is not None:
         c_part = jax.lax.psum(c_part, axis_name)
@@ -269,9 +280,10 @@ def measurement_update(
     c_grid = jnp.where(obs.mask, c_grid, 1.0)  # masked cells: inert positive
 
     if have_osp:
-        c_sp = jnp.einsum("ymk,ym->yk", g_dy, d_w.reshape(Yc, C * S_t))
+        c_sp = jnp.einsum("ymk,ym->yk", g_dy, d_w.reshape(Yc, C * S_t),
+                          precision=_HI)
         if have_psp:
-            c_sp = c_sp + (sp_w @ g_py).reshape(Yc, Ks)
+            c_sp = c_sp + jnp.dot(sp_w, g_py, precision=_HI).reshape(Yc, Ks)
         if axis_name is not None:
             c_sp = jax.lax.psum(c_sp, axis_name)
         c_spill = jnp.where(
@@ -288,46 +300,42 @@ def measurement_update(
     # ---- pass 2: weight factors ---------------------------------------
     nbr_cinv = jnp.where(nbr_mask, 1.0 / gather_neighbors(c_grid, cfg, 1.0), 0.0)
 
-    if use_pallas:
-        from .pallas.update import update_pass2
+    def pass2(args):
+        return pass2_sums(*args, sigma_ob)
 
-        sum_dense = update_pass2(fovbin.pos, nbr_cinv, nbr_pts, sigma_ob)
+    p2_in = (
+        fovbin.pos.reshape(n_chunks, chunk, S_t, 3),
+        nbr_pts.reshape(n_chunks, chunk, ck, 3),
+        nbr_cinv.reshape(n_chunks, chunk, ck),
+    )
+    if n_chunks == 1:
+        sum_dense = pass2(jax.tree.map(lambda x: x[0], p2_in))[None]
     else:
-        def pass2(args):
-            ppos, pts, cinv = args
-            g = _pair_g(ppos, pts, sigma_ob)
-            return jnp.einsum("bsm,bm->bs", g, cinv,
-                              preferred_element_type=jnp.float32)
-
-        p2_in = (
-            fovbin.pos.reshape(n_chunks, chunk, S_t, 3),
-            nbr_pts.reshape(n_chunks, chunk, ck, 3),
-            nbr_cinv.reshape(n_chunks, chunk, ck),
-        )
-        if n_chunks == 1:
-            sum_dense = pass2(jax.tree.map(lambda x: x[0], p2_in))[None]
-        else:
-            sum_dense = jax.lax.map(pass2, p2_in)
-        sum_dense = sum_dense.reshape(n_pyr, S_t)
+        sum_dense = jax.lax.map(pass2, p2_in)
+    sum_dense = sum_dense.reshape(n_pyr, S_t)
 
     if have_osp:
         # spill-obs contributions to the dense factor tiles: reduce
         # (g/C_y) per (neighbor cell, slot) by a small one-hot matmul
         y_cinv = jnp.where(obs.spill_pts_mask, 1.0 / c_spill, 0.0)  # [Yc, Ks]
-        contrib = jnp.einsum("ymk,yk->ym", g_dy, y_cinv).reshape(Yc, C, S_t)
+        contrib = jnp.einsum("ymk,yk->ym", g_dy, y_cinv,
+                             precision=_HI).reshape(Yc, C, S_t)
         contrib = (contrib * y_ok[:, :, None]).reshape(Yc * C, S_t)
         onehot_y = (
             y_nbr.reshape(-1)[None, :]
             == jnp.arange(n_pyr, dtype=jnp.int32)[:, None]
         ) & (y_ok & obs.spill_cell_mask[:, None]).reshape(-1)[None, :]
-        sum_dense = sum_dense + onehot_y.astype(jnp.float32) @ contrib
+        sum_dense = sum_dense + jnp.dot(
+            onehot_y.astype(jnp.float32), contrib, precision=_HI
+        )
 
     factor = (1.0 - p_d) + p_d * sum_dense
 
     if have_psp:
-        sum_sp = jnp.einsum("pm,pm->p", g_pz, nbr_cinv[sp_pyr_safe])
+        sum_sp = jnp.einsum("pm,pm->p", g_pz, nbr_cinv[sp_pyr_safe],
+                            precision=_HI)
         if have_osp:
-            sum_sp = sum_sp + g_py @ y_cinv.ravel()
+            sum_sp = sum_sp + jnp.dot(g_py, y_cinv.ravel(), precision=_HI)
         factor_sp = (1.0 - p_d) + p_d * sum_sp
 
     # Occlusion: skipped iff the particle's own pyramid has points AND the
@@ -356,10 +364,6 @@ def measurement_update(
         )
         n_updated = n_updated + jnp.sum(upd_sp)
 
-    # (Compacting the writeback to realized-updated width was measured a
-    # net regression -- realized updated counts reach 5.6k of the ~32k
-    # capacity but the compaction+cond overhead exceeded the scatter
-    # saving.  docs/PERF.md round-3 dead ends.)
     weight = pool_put(particles.weight, slot, vals_w)
     if cfg.record_particle_time:
         t = pool_put(particles.t, slot,

@@ -1,4 +1,4 @@
-"""Map state as a pure JAX pytree (the TPU translation of the reference's
+"""Map state as a pure JAX pytree (the translation of the reference's
 file-scope static arrays, ``include/dsp_dynamic.h:112-140``).
 
 The reference holds exactly one map per process because all storage is static
@@ -9,7 +9,7 @@ so maps are first-class: checkpointable (it is just arrays), shardable
 Storage layout is slots-major SoA ``[S, V]`` (S = slots per voxel, V = voxel
 count): per-voxel reductions -- weight sums, velocity means, resampling
 cumsums -- become reductions/scans over the small leading axis with the long
-voxel axis vectorized on VPU lanes.  The reference's AoS
+voxel axis vectorized across lanes.  The reference's AoS
 ``voxels_with_particle[V][S][9]`` (``dsp_dynamic.h:116``) would put the
 9-float record on the lane axis instead.
 
@@ -34,10 +34,8 @@ import jax.numpy as jnp
 
 from .config import MapConfig
 
-# int32 rather than uint8: sub-word pool planes pay a byte-packed
-# (4,1)-tiled relayout copy around every scatter (~0.57 ms/frame vs
-# ~0.04 ms for a word-sized plane; docs/PERF.md round-2 log).  The
-# extra read bandwidth (9 MB/pass) is noise next to that.
+# int32 rather than uint8: every pool plane is one word per slot, so the
+# flag plane takes the same scatter and gather paths as the f32 planes.
 FLAG_DTYPE = jnp.int32
 FLAG_DEAD = jnp.int32(0)
 FLAG_VALID = jnp.int32(1)
@@ -84,57 +82,19 @@ class Particles:
         return jnp.stack([self.vx, self.vy, self.vz], axis=-1)
 
 
-#: keep in sync with ops.common._DMA_RELAYOUT_BYTES (same cliff)
-_DMA_RELAYOUT_BYTES = 16 << 20
-
-
-def ravel_plane(x: jnp.ndarray) -> jnp.ndarray:
-    """``[S, V]`` -> ``[S*V]``, picking the cheap conversion per scale:
-    below VMEM size XLA's own reshape relayout is a single fast copy
-    (~0.03 ms at the flagship's 12.5 MB planes, round-3 trace); above it
-    XLA degrades to a chunked ~35 GB/s loop (~6-12 ms at large_urban's
-    216 MB planes -- the round-3 large-map regression), so big planes
-    route through the Pallas DMA relayout kernel (~200 GB/s,
-    ops/pallas/relayout.py)."""
-    if (x.ndim == 2 and x.size * x.dtype.itemsize >= _DMA_RELAYOUT_BYTES
-            and x.shape[1] % 1024 == 0 and jax.default_backend() != "cpu"):
-        from .ops.pallas.relayout import to_flat
-
-        return to_flat(x)
-    return x.reshape(-1)
-
-
-def unravel_plane(x: jnp.ndarray, slots: int) -> jnp.ndarray:
-    """``[S*V]`` -> ``[S, V]`` (inverse of :func:`ravel_plane`)."""
-    v = x.shape[0] // slots
-    if (x.size * x.dtype.itemsize >= _DMA_RELAYOUT_BYTES
-            and v % 1024 == 0 and jax.default_backend() != "cpu"):
-        from .ops.pallas.relayout import from_flat
-
-        return from_flat(x, slots, v)
-    return x.reshape(slots, v)
-
-
 def flatten_pool(p: Particles, skip: tuple = ()) -> Particles:
     """Ravel every pool plane to its flat ``[S*V]`` form.
 
     Mid-frame representation for the scatter-heavy stages (mover insertion
     -> measurement writeback -> birth insertion): XLA linearizes every pool
     scatter into a flat scatter regardless of the operand's logical shape,
-    paying a tiled<->flat relayout copy pair per plane per site (~0.05
-    ms/plane at the flagship's 12.5 MB planes, 1-2 ms at multi/large-map
-    scale; round-2 device traces in docs/PERF.md).  Keeping the planes flat
-    between the first scatter and the occupancy stage makes every scatter
-    AND every flat-index gather native, so each plane converts exactly
-    twice per frame (once in, once back out for the occupancy kernel's
-    tiled [S, V] blocks) instead of once per site.  Conversions go through
-    :func:`ravel_plane` so >VMEM planes take the DMA kernel, not XLA's
-    chunked relayout loop.
+    so the planes stay flat between the first scatter and the occupancy
+    stage, where every scatter and every flat-index gather is native.  A
+    row-major ``[S, V] -> [S*V]`` reshape is a bitcast on the GPU.
 
     ``skip`` names planes left in their 2-D form -- used for planes that
     are never touched during the flat phase (the write-only ``t`` plane
-    when ``record_particle_time`` is off), whose round-trip conversion
-    would be pure waste (~2 ms/frame at large_urban's 216 MB planes).
+    when ``record_particle_time`` is off).
     Only planes genuinely untouched mid-frame may be skipped: a skipped
     plane stays 2-D, and the 1-D-assuming flat-phase call sites would
     mis-handle it far from the cause -- hence the guard below.  ``flags``
@@ -147,7 +107,7 @@ def flatten_pool(p: Particles, skip: tuple = ()) -> Particles:
             f"excluding 'flags'; got {skip!r}"
         )
     return dataclasses.replace(
-        p, **{f.name: ravel_plane(getattr(p, f.name))
+        p, **{f.name: getattr(p, f.name).reshape(-1)
               for f in dataclasses.fields(p) if f.name not in skip}
     )
 
@@ -158,7 +118,7 @@ def unflatten_pool(p: Particles, slots: int) -> Particles:
     if p.flags.ndim == 2:
         return p
     return dataclasses.replace(
-        p, **{f.name: unravel_plane(getattr(p, f.name), slots)
+        p, **{f.name: getattr(p, f.name).reshape(slots, -1)
               for f in dataclasses.fields(p)
               if getattr(p, f.name).ndim == 1}
     )
@@ -262,11 +222,8 @@ class MapState:
     #: future-status accumulators (voxels_objects_number[:,4:]); cleared by
     #: the occupancy readout exactly like the reference (dsp_dynamic.h:420-424).
     #: Horizon-major [T, V]: the per-frame mover scatter then linearizes to a
-    #: native flat [T*V] scatter through state.ravel_plane (at large-map
-    #: scale the voxel-major [V, T] form made XLA relayout the whole
-    #: 100+ MB grid through its ~35 GB/s chunked loop around every scatter
-    #: -- ~10 ms/frame, round-4 trace).  Readouts transpose to the public
-    #: [n, T] order.
+    #: native flat [T*V] scatter with no relayout of the grid.  Readouts
+    #: transpose to the public [n, T] order.
     future: jnp.ndarray  # f32 [T, V]
     rng: jax.Array
     sensor_pos: jnp.ndarray  # f32 [3] (current_position, dsp_dynamic.h:131)
@@ -310,7 +267,7 @@ def init_state(
 
     s, v = cfg.slots_per_voxel, cfg.storage_voxels
     # Build on host with numpy (a fresh state is all zeros) and transfer in
-    # one piece -- per-op eager dispatch is expensive on remote backends.
+    # one piece instead of dispatching one eager op per plane.
     sensor_np = np.asarray(sensor_pos, np.float32)
     half = np.asarray(cfg.half_extent, np.float32)
     origin_np = np.floor(
@@ -379,7 +336,7 @@ def add_random_particles(
     # the only write site that can produce a non-conforming velocity --
     # lets the pipeline maintain "velocities conform" as a write-site
     # invariant instead of re-clamping the whole pool every frame (a full
-    # plane pass, ~1.5 ms/frame at large_urban scale).
+    # plane pass).
     if cfg.motion_model == "static":
         vel = jnp.zeros_like(vel)
     elif cfg.limit_motion_to_xy_plane:

@@ -54,6 +54,20 @@ def street_scene(seed: int = 0) -> Scene:
     return Scene(boxes=boxes)
 
 
+def surface_distance(points: np.ndarray, scene: Scene, t: float) -> np.ndarray:
+    """Distance from each of ``points [N, 3]`` to the nearest surface of
+    ``scene`` at time ``t``: the boxes (zero inside one) and the ground
+    plane within its extent."""
+    p = np.asarray(points, np.float64)
+    inside = np.all(np.abs(p[:, :2]) <= scene.ground_extent, axis=1)
+    best = np.where(inside, np.abs(p[:, 2] - scene.ground_z), np.inf)
+    for b in scene.boxes:
+        c = b.center + b.velocity * t
+        gap = np.maximum(np.abs(p - c) - 0.5 * b.size, 0.0)
+        best = np.minimum(best, np.linalg.norm(gap, axis=1))
+    return best
+
+
 def occlusion_scene(seed: int = 0) -> Scene:
     """Adversarial: a large near-field wall occludes most of the corridor;
     a pedestrian crosses BEHIND it (visible only through the gap) and one

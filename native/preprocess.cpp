@@ -1,8 +1,8 @@
 // Native frame-preprocessing runtime: the host-side per-frame work the
 // reference performs in its C++ ROS node (src/map_sim_example.cpp:306-336)
 // reimplemented as a small shared library the Python runtime loads via
-// ctypes (no pybind dependency).  This is the CPU data path feeding the TPU
-// compute path: voxel-grid downsampling, the camera->body axis remap, the
+// ctypes (no pybind dependency).  This is the host data path feeding the device
+// step: voxel-grid downsampling, the camera->body axis remap, the
 // map-range crop, and pose-queue interpolation.
 //
 // Build: tools/build_native.sh -> libdspmap_native.so

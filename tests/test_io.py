@@ -207,7 +207,7 @@ def test_checkpoint_config_switch_sanitizer(tmp_path):
     clamped one violates the pipeline's velocity-clamp write-site invariant
     (vz==0 under limit-xy; the Pallas occupancy kernel's plane elision
     relies on it).  load_state(cfg=...) re-applies the clamp; without cfg
-    the restore stays bit-exact (advisor round-4 low finding)."""
+    the restore stays bit-exact."""
     import dataclasses
 
     cfg_free = small_cfg(limit_motion_to_xy_plane=False)

@@ -293,7 +293,7 @@ def test_resample_matches_serial_oracle_mass_and_counts():
 def test_pool_take_stacked_matches_pair_gathers():
     """One [F,S,V] window gather == F independent pair gathers, including
     integer lanes (which ride as exact f32 values -- small ints bitcast to
-    f32 denormals that the TPU VPU can silently flush to zero, so the
+    f32 denormals that a device may silently flush to zero, so the
     bitcast formulation is forbidden; ops/common.py pool_take_stacked)."""
     from dspmap_tpu.ops.common import pool_take, pool_take_stacked
 

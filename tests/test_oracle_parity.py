@@ -288,7 +288,7 @@ def test_occupancy_parity_fast_ego(oracle_bins):
 
 @pytest.mark.slow
 def test_multisensor_parity_vs_single_sensor_oracle(oracle_bins):
-    """BASELINE config 5 anchor (round-4 verdict item 6): two cameras yawed
+    """BASELINE config 5 anchor: two cameras yawed
     +-21 deg with 21-deg half-FOV each -- their FOVs tile the reference's
     single 42-deg camera -- must reproduce the full-FOV oracle's occupancy
     within the single-sensor tolerance band.  (Splitting the CLOUD while

@@ -1,7 +1,11 @@
-"""Pallas kernels vs their XLA reference implementations (interpret mode on
-CPU; the on-device path is exercised by bench/TPU runs)."""
+"""The occupancy Pallas kernel (Triton route) vs the XLA pool pass, in
+interpret mode on CPU; the compiled kernel is compared on the GPU by
+chip_smoke.py.  Also the plain-JAX forms that replaced the earlier kernels:
+the measurement-update pair passes and the compact layout's segmented
+scans, each against a float64 / serial NumPy reference."""
 
 import dataclasses
+import math
 
 import numpy as np
 import jax
@@ -9,8 +13,8 @@ import jax.numpy as jnp
 import pytest
 
 import dspmap_tpu as dm
-from dspmap_tpu.ops.sweep import sweep_reference
-from dspmap_tpu.ops.pallas.sweep import sweep_pallas
+from dspmap_tpu.ops.occupancy import _pool_pass_xla
+from dspmap_tpu.ops.pallas.occupancy import BLOCK, occupancy_pool_pass
 
 
 def _cfg(**kw):
@@ -20,52 +24,6 @@ def _cfg(**kw):
     return dm.dsp_dynamic(**base)
 
 
-def _populated(cfg, key=0, vz_zero=True):
-    state = dm.init_state(cfg, jax.random.key(key), init_particle_num=2000,
-                          init_weight=0.05)
-    p = state.particles
-    rng = np.random.default_rng(key)
-    S, V = p.flags.shape
-    p = dataclasses.replace(
-        p,
-        vx=jnp.asarray(rng.normal(0, 0.5, (S, V)), jnp.float32),
-        vy=jnp.asarray(rng.normal(0, 0.5, (S, V)), jnp.float32),
-        vz=jnp.zeros((S, V), jnp.float32) if vz_zero else p.vz,
-    )
-    return state, p
-
-
-@pytest.mark.parametrize("model", ["constant_velocity", "static"])
-def test_sweep_kernel_matches_reference(model):
-    cfg = _cfg(motion_model=model, estimator_enabled=model != "static")
-    state, p = _populated(cfg)
-    if model == "static":
-        zeros = jnp.zeros_like(p.vx)
-        p = dataclasses.replace(p, vx=zeros, vy=zeros, vz=zeros)
-    dt = jnp.float32(0.3)
-    sensor = jnp.asarray([0.2, -0.1, 0.4], jnp.float32)
-    quat = jnp.asarray([0.9689, 0.0, 0.0, 0.2474], jnp.float32)
-    origin = jnp.asarray(state.origin)
-
-    ref = sweep_reference(p, cfg, dt, origin, sensor, quat)
-    got = sweep_pallas(p, cfg, dt, origin, sensor, quat, interpret=True)
-
-    # The kernel may contract multiply-adds (FMA), so positions can differ by
-    # 1 ulp, and a sub-ulp position shift can flip voxel/pyramid membership
-    # exactly at a cell boundary.  Require float agreement to 1e-5 and <0.1%
-    # boundary flips on the discrete fields.
-    for name in ref._fields:
-        a, b = np.asarray(getattr(ref, name)), np.asarray(getattr(got, name))
-        if name == "pyr":  # garbage where not in FOV
-            m = np.asarray(ref.fov) & np.asarray(got.fov)
-            a, b = a[m], b[m]
-        if a.dtype == np.float32:
-            np.testing.assert_allclose(a, b, atol=1e-5, err_msg=name)
-        else:
-            frac = np.mean(a.astype(np.int64) != b.astype(np.int64))
-            assert frac < 1e-3, (name, frac)
-
-
 @pytest.mark.parametrize("safety,mode", [
     (2, "limit_xy"),   # n_vel=2: vz plane elided from the kernel I/O
     (5, "limit_xy"),
@@ -73,16 +31,13 @@ def test_sweep_kernel_matches_reference(model):
     (2, "static"),     # n_vel=0: every velocity plane elided
 ])
 def test_occupancy_kernel_matches_xla(safety, mode):
-    """The occupancy mega-kernel (ops/pallas/occupancy.py) is element-exact
+    """The occupancy kernel (ops/pallas/occupancy.py) is element-exact
     vs the XLA pool pass, including cull, newborn reset, systematic-resample
     copy placement and mass fold-back -- at both the x2 and the x5
     (dsp_static) slot safety factors and at every velocity-plane elision
-    arm (the clamp-invariant planes skipped from kernel I/O).  Inputs
+    arm (the clamp-invariant planes left out of the kernel).  Inputs
     conform to the pipeline's clamp invariant per mode, which is what the
     elision's exactness is defined over."""
-    from dspmap_tpu.ops.occupancy import _pool_pass_xla
-    from dspmap_tpu.ops.pallas.occupancy import occupancy_pool_pass
-
     kw = {}
     if mode == "free":
         kw.update(limit_motion_to_xy_plane=False)
@@ -153,25 +108,23 @@ def test_occupancy_kernel_matches_xla(safety, mode):
     ["no_resample", "multi_tile_mixed", "tail_tile", "no_resample_with_t"],
 )
 def test_occupancy_kernel_skip_branch(scenario):
-    """The kernel's per-tile resample skip (``pl.when(any_rs)``): tiles whose
-    voxels all hold < resample_min_count survivors take the cheap copy branch,
-    which must be element-exact too -- including the t-plane copy when
-    ``record_particle_time`` and the mixed case where some grid tiles resample
-    and others skip (V > L), plus a non-multiple V whose tail tile must mask
-    its padding lanes out of the ``any_rs`` reduce."""
-    from dspmap_tpu.ops.occupancy import _pool_pass_xla
-    from dspmap_tpu.ops.pallas.occupancy import occupancy_pool_pass
-
+    """Blocks in which no voxel resamples (every voxel holds fewer than
+    resample_min_count survivors) must be element-exact too -- including the
+    t-plane copy when ``record_particle_time``, the mixed case where some
+    program blocks resample and others do not (V > BLOCK), and a V that is
+    not a multiple of BLOCK, whose tail block masks its loads and stores."""
     kw = {}
     if scenario == "multi_tile_mixed":
-        kw.update(nx=32, ny=32)  # V = 8192 -> 4 tiles at L = 2048
+        kw.update(nx=32, ny=32)  # V = 8192 -> 16 blocks
     elif scenario == "tail_tile":
-        kw.update(nx=24)  # V = 3072 -> one full tile + a 1024 tail
+        kw.update(nx=15)  # V = 1920 -> three full blocks + a 384 tail
     elif scenario == "no_resample_with_t":
         kw.update(record_particle_time=True)
     cfg = _cfg(**kw)
-    S, V = cfg.slots_per_voxel, cfg.storage_voxels
-    L = 2048 if S <= 32 else 1024
+    S, V = cfg.slots_per_voxel, cfg.voxel_num
+    if scenario == "tail_tile":
+        assert V % BLOCK
+    L = BLOCK
     rng = np.random.default_rng(3)
     flags = np.zeros((S, V), np.int32)
     weights = np.zeros((S, V), np.float32)
@@ -194,12 +147,12 @@ def test_occupancy_kernel_skip_branch(scenario):
     else:
         assert survivors.max() < cfg.resample_min_count
 
-    state = dm.init_state(cfg, jax.random.key(0))
-    p = dataclasses.replace(
-        state.particles,
+    zeros = jnp.zeros((S, V), jnp.float32)
+    p = dm.Particles(
         flags=jnp.asarray(flags), weight=jnp.asarray(weights),
-        vx=jnp.asarray(vx),
+        vx=jnp.asarray(vx), vy=zeros, vz=zeros,
         px=jnp.asarray(rng.normal(0, 1, (S, V)), jnp.float32),
+        py=zeros, pz=zeros,
         t=jnp.asarray(rng.uniform(0, 5, (S, V)), jnp.float32),
     )
     ref, ws_r, n_old_r, vsum_r, static_r, moving_r = _pool_pass_xla(p, cfg)
@@ -218,86 +171,79 @@ def test_occupancy_kernel_skip_branch(scenario):
     np.testing.assert_array_equal(np.asarray(moving), np.asarray(moving_r))
 
 
-def test_update_pair_kernels_match_xla():
-    """The measurement-update pair kernels (ops/pallas/update.py) match the
-    XLA einsum formulation to f32 rounding (the kernels compute d2 as
-    coordinate differences, the XLA path via the matmul identity)."""
-    from dspmap_tpu.ops.pallas.update import update_pass1, update_pass2
-    import math
-
-    rng = np.random.default_rng(7)
-    n_pyr, s_t, ck, sigma = 56, 32, 288, 0.1
-    pos = rng.normal(0, 2, (n_pyr, s_t, 3)).astype(np.float32)
+def _update_inputs(seed, n_pyr, s_t, ck, centre):
+    rng = np.random.default_rng(seed)
+    pos = (centre + rng.normal(0, 0.3, (n_pyr, s_t, 3))).astype(np.float32)
+    pts = (centre + rng.normal(0, 0.3, (n_pyr, ck, 3))).astype(np.float32)
     w = (rng.random((n_pyr, s_t))
          * (rng.random((n_pyr, s_t)) > 0.3)).astype(np.float32)
-    pts = rng.normal(0, 2, (n_pyr, ck, 3)).astype(np.float32)
     cinv = (rng.random((n_pyr, ck))
             * (rng.random((n_pyr, ck)) > 0.5)).astype(np.float32)
-
-    c3 = (1.0 / math.sqrt(math.pi)) ** 3
-    d2 = ((pos[:, :, None, :] / sigma - pts[:, None, :, :] / sigma) ** 2).sum(-1)
-    g = c3 * np.exp(-0.5 * d2)
-    want1 = np.einsum("psm,ps->pm", g, w)
-    want2 = np.einsum("psm,pm->ps", g, cinv)
-
-    got1 = np.asarray(update_pass1(jnp.asarray(pos), jnp.asarray(w),
-                                   jnp.asarray(pts), sigma, interpret=True))
-    got2 = np.asarray(update_pass2(jnp.asarray(pos), jnp.asarray(cinv),
-                                   jnp.asarray(pts), sigma, interpret=True))
-    np.testing.assert_allclose(got1, want1, rtol=2e-5, atol=1e-6)
-    np.testing.assert_allclose(got2, want2, rtol=2e-5, atol=1e-6)
+    return pos, pts, w, cinv
 
 
-def test_relayout_round_trip_interpret():
-    """to_flat/from_flat == ravel/reshape (interpret mode; the TPU path is
-    exercised by bench/large_urban)."""
-    from dspmap_tpu.ops.pallas.relayout import from_flat, to_flat
-
-    rng = np.random.default_rng(11)
-    for S, V in [(18, 2048), (10, 1024), (60, 3072)]:
-        plane = jnp.asarray(rng.normal(size=(S, V)).astype(np.float32))
-        f = to_flat(plane, interpret=True)
-        np.testing.assert_array_equal(np.asarray(f), np.asarray(plane).ravel())
-        r = from_flat(f, S, V, interpret=True)
-        np.testing.assert_array_equal(np.asarray(r), np.asarray(plane))
+def _update_f64(pos, pts, w, cinv, sigma):
+    p64, q64 = pos.astype(np.float64), pts.astype(np.float64)
+    d2 = (((p64[:, :, None, :] - q64[:, None, :, :]) / sigma) ** 2).sum(-1)
+    g = (1.0 / math.sqrt(math.pi)) ** 3 * np.exp(-0.5 * d2)
+    return (np.einsum("psm,ps->pm", g, w.astype(np.float64)),
+            np.einsum("psm,pm->ps", g, cinv.astype(np.float64)))
 
 
-def test_segscan_kernel_matches_xla_bit_exact():
-    """ops/pallas/segscan.py: the segmented-scan kernel runs the identical
-    Hillis-Steele recurrence -- bit-equal hi/tot vs the XLA helpers
-    (interpret mode; fragmented runs + dead tail)."""
-    import numpy as np
-    import jax.numpy as jnp
-    import dspmap_tpu.ops.pallas.segscan as sg
-    from dspmap_tpu.ops.compact import _seg_cumsum, _fill_from_end
+@pytest.mark.parametrize("which", ["pass1", "pass2"])
+def test_update_pass_far_coordinates_vs_float64(which):
+    """The measurement update's pair passes (ops/update.pass1_sums and
+    pass2_sums, as measurement_update calls them) at far coordinates, |x| ~ 10 m with
+    sigma = 0.1 m, against a float64 NumPy evaluation.  The expanded form
+    |a|^2 + |b|^2 - 2 a.b cancels here (|a/sigma|^2 ~ 3e4); the difference
+    form holds a relative error far below 1e-4."""
+    from dspmap_tpu.ops.update import pass1_sums, pass2_sums
 
-    old = sg.INTERPRET
-    sg.INTERPRET = True
-    try:
-        rng = np.random.default_rng(3)
-        P = 1024
-        key = np.sort(rng.integers(0, 200, P))
-        key[-100:] = 10**6
-        # fragment a few runs (mid-frame disorder)
-        key[100:110] = 7
-        is_start = np.concatenate([[True], key[1:] != key[:-1]])
-        is_end = np.concatenate([key[1:] != key[:-1], [True]]) & (key < 10**6)
-        cols = [jnp.asarray(rng.uniform(0, 1, P), jnp.float32)
-                for _ in range(3)]
-        his_p, tots_p = sg.seg_scans_pallas(
-            cols, jnp.asarray(is_start), jnp.asarray(is_end), 32, 2
-        )
-        X = jnp.stack(cols, -1)
-        hi_x = _seg_cumsum(X, jnp.asarray(is_start), 32)
-        tot_x = _fill_from_end(hi_x[:, :2], jnp.asarray(is_end), 32)
-        for c in range(3):
-            np.testing.assert_array_equal(
-                np.asarray(his_p[c]), np.asarray(hi_x[:, c])
-            )
-        m = key < 10**6
-        for c in range(2):
-            np.testing.assert_array_equal(
-                np.asarray(tots_p[c])[m], np.asarray(tot_x[:, c])[m]
-            )
-    finally:
-        sg.INTERPRET = old
+    sigma = 0.1
+    centre = np.array([9.5, -8.0, 1.5])
+    pos, pts, w, cinv = _update_inputs(7, 56, 32, 288, centre)
+    want1, want2 = _update_f64(pos, pts, w, cinv, sigma)
+    pos, pts = jnp.asarray(pos), jnp.asarray(pts)
+    if which == "pass1":
+        got = np.asarray(pass1_sums(pos, jnp.asarray(w), pts, sigma))
+        want = want1
+    else:
+        got = np.asarray(pass2_sums(pos, pts, jnp.asarray(cinv), sigma))
+        want = want2
+    assert want.max() > 0.1  # the pairs are close enough to matter
+    rel = np.abs(got - want).max() / np.abs(want).max()
+    assert rel <= 1e-4, rel
+
+
+def test_seg_scans_match_serial_loop():
+    """ops/compact.seg_scans (run-local cumsums and run totals, a
+    Hillis-Steele scan bounded by the longest live run) against a serial
+    NumPy walk over fragmented runs and a dead tail."""
+    from dspmap_tpu.ops.compact import seg_scans
+
+    rng = np.random.default_rng(3)
+    P, max_run = 1024, 32
+    key = np.sort(rng.integers(0, 200, P))
+    key[-100:] = 10**6
+    key[100:110] = 7  # fragment a few runs (mid-frame disorder)
+    is_start = np.concatenate([[True], key[1:] != key[:-1]])
+    is_end = np.concatenate([key[1:] != key[:-1], [True]]) & (key < 10**6)
+    cols = [rng.uniform(0, 1, P).astype(np.float32) for _ in range(3)]
+    live = key < 10**6
+    cols = [np.where(live, c, 0.0).astype(np.float32) for c in cols]
+    his, tots = seg_scans([jnp.asarray(c) for c in cols],
+                          jnp.asarray(is_start), jnp.asarray(is_end),
+                          max_run, 2)
+
+    for c in range(3):
+        want = np.zeros(P, np.float64)
+        for i in range(P):
+            want[i] = cols[c][i] + (0.0 if is_start[i] else want[i - 1])
+        np.testing.assert_allclose(np.asarray(his[c]), want, rtol=1e-6,
+                                   atol=1e-6)
+        if c < 2:
+            tot = np.zeros(P, np.float64)
+            for i in range(P - 1, -1, -1):
+                tot[i] = want[i] if is_end[i] or i == P - 1 else tot[i + 1]
+            np.testing.assert_allclose(np.asarray(tots[c])[live], tot[live],
+                                       rtol=1e-6, atol=1e-6)

@@ -23,7 +23,7 @@ def cfg_for(n_devices, base=dsp_dynamic):
     # 0.5 m voxels put the synthetic street scene's pillars and pedestrians
     # (x in [3, 8]) INSIDE the 8 x 8 m map -- with the default 0.15 m
     # resolution this grid spans only 2.4 m and every frame maps to an empty
-    # pool, making the equivalence assertions vacuous (round-3 finding).
+    # pool, making the equivalence assertions vacuous.
     return base(
         nx=16, ny=16, nz=4 * n_devices, voxel_resolution=0.5,
         max_input_points=512,

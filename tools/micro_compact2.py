@@ -1,5 +1,5 @@
-"""Microbench the compact-core primitive costs at population widths (round-5
-redesign groundwork): multi-column scatter-add vs segment-table, sorts with
+"""Microbench the compact-core primitive costs at population widths on the
+default JAX device: multi-column scatter-add vs segment-table, sorts with
 payload operands, stacked gathers, scans, compact_mask."""
 
 import sys

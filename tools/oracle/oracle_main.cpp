@@ -3,7 +3,7 @@
 // a binary frame stream through DSPMap::update, recording per-frame wall time
 // and the occupancy/future outputs.  This provides (a) the measured
 // single-core baseline BASELINE.md calls for and (b) golden behavioral data
-// for stochastic-tolerance parity tests of the TPU build.
+// for stochastic-tolerance parity tests of the JAX build.
 //
 // Frame stream format (little-endian):
 //   header: i32 n_frames, i32 max_points

@@ -4,7 +4,7 @@ Produces:
 * BASELINE_MEASURED.json -- the reference's single-core map-update rate on
   this machine (the denominator for bench.py's vs_baseline),
 * per-frame occupied-voxel world centers for stochastic-tolerance parity
-  tests against the TPU build.
+  tests against the JAX build.
 
 Usage: python tools/oracle/run_oracle.py [--frames N] [--variant dynamic]
 """

@@ -1,10 +1,10 @@
-"""ONE parity-regeneration ritual (round-4 verdict item 3): rebuild
+"""ONE parity-regeneration ritual: rebuild
 docs/PARITY.md from scratch -- the long-horizon no-decay table (>=300
 frames, >=3 seeds, tools/parity_report.py) followed by the
 distribution-level ROC sweeps + future-status calibration for ALL THREE
-variants (tools/parity_roc.py).  Run this whenever BENCH_DETAIL.json is
-regenerated so the front-page parity claims always have a same-HEAD
-artifact behind them.
+variants (tools/parity_roc.py).  Run this whenever the step's numerics
+change so the front-page parity claims always have a same-HEAD artifact
+behind them.
 
 Usage: python tools/parity_all.py [--frames 300] [--seeds 3 4 5] [--quick]
 (--quick: 100 frames / fewer ROC seeds, for smoke checks only.)

@@ -1,6 +1,6 @@
 """Long-horizon behavioral parity report vs the compiled reference.
 
-Replays extended synthetic sequences through both the TPU build (CPU backend
+Replays extended synthetic sequences through both the JAX build (CPU backend
 here) and the reference oracle, and reports per-frame mutual occupancy
 agreement (chamfer fractions at 1.6 voxel) -- checking for *drift*: a filter
 that slowly diverges would show decaying agreement over time.
@@ -74,8 +74,7 @@ def main():
     # the inherent stochastic divergence of this filter.  Genuine
     # implementation drift would make OUR final-third agreement fall
     # materially below the oracle's self-agreement; matching it means the
-    # decay is the filter's own RNG sensitivity (round-4 verdict item 3's
-    # seed-5 question, settled methodologically).
+    # decay is the filter's own RNG sensitivity.
     import time as _time
 
     null_rows = []

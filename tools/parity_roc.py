@@ -1,6 +1,5 @@
 """Distribution-level parity vs the compiled reference: occupancy ROC over
-a threshold sweep, and future-status calibration (VERDICT round-1 item 9 /
-ROADMAP section 5).
+a threshold sweep, and future-status calibration.
 
 * ROC: the oracle is replayed once per occupancy threshold (it thresholds
   internally, run_oracle.py); our weight grid is read once per frame and
